@@ -8,18 +8,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.render.renderer import (
+from julia_raytracer.render.renderer import (
     Params, Renderer, TraceState, make_trace_state,
 )
-from julia_raytracer_tpu.scene.loader import load_scene
-
-SCENE = "/root/reference/scenes/cornellbox/cornellbox.json"
+from julia_raytracer.scene.generate import ensure_scene
+from julia_raytracer.scene.loader import load_scene
 
 
 def _render(adaptive, samples, warmup=2, res=32, seed=0):
-    scene = load_scene(SCENE)
+    path = ensure_scene("cornellbox")
+    scene = load_scene(path)
     p = Params(
-        scene=SCENE, resolution=res, samples=samples, bounces=4,
+        scene=path, resolution=res, samples=samples, bounces=4,
         sampler="path", batch=samples, seed=seed,
         adaptive=adaptive, adaptive_warmup=warmup,
     )
@@ -95,7 +95,7 @@ def test_adaptive_budget_with_multiple_chunks(monkeypatch):
     that does not divide n_pixels, each round must still add EXACTLY
     n_pixels samples, and resuming a uniform path from an adaptive
     checkpoint must refuse."""
-    import julia_raytracer_tpu.render.renderer as rmod
+    import julia_raytracer.render.renderer as rmod
 
     monkeypatch.setattr(rmod, "MAX_CHUNK", 700)  # 1024 px -> 2 chunks
     r, s = _render(adaptive=True, samples=4, warmup=2)

@@ -6,7 +6,8 @@ the full pipeline with env importance sampling."""
 import jax.numpy as jnp
 import numpy as np
 
-from julia_raytracer_tpu.scene.augment import add_environment, add_sky, make_sunsky
+from julia_raytracer.scene.augment import add_environment, add_sky, make_sunsky
+from julia_raytracer.scene.generate import ensure_scene
 
 
 def test_sunsky_physical_shape():
@@ -36,14 +37,14 @@ def test_sunsky_elevation_moves_sun():
 
 
 def test_addsky_renders():
-    from julia_raytracer_tpu.render.integrator import (
+    from julia_raytracer.render.integrator import (
         TraceOptions, make_intersect, trace_wavefront,
     )
-    from julia_raytracer_tpu.render.scene_device import build_device_scene
-    from julia_raytracer_tpu.scene.loader import load_scene
-    from julia_raytracer_tpu.utils import rng as rng_mod
+    from julia_raytracer.render.scene_device import build_device_scene
+    from julia_raytracer.scene.loader import load_scene
+    from julia_raytracer.utils import rng as rng_mod
 
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+    scene = load_scene(ensure_scene("cornellbox"))
     n_env0 = len(scene.environments)
     add_sky(scene)
     assert len(scene.environments) == n_env0 + 1
@@ -65,9 +66,9 @@ def test_addsky_renders():
 
 
 def test_envname_renders(tmp_path):
-    from julia_raytracer_tpu.render.scene_device import build_device_scene
-    from julia_raytracer_tpu.scene.loader import load_scene
-    from julia_raytracer_tpu.utils.imgio import save_png
+    from julia_raytracer.render.scene_device import build_device_scene
+    from julia_raytracer.scene.loader import load_scene
+    from julia_raytracer.utils.imgio import save_png
 
     # write a small PNG panorama and add it as an environment
     img = np.zeros((8, 16, 4), np.float32)
@@ -75,7 +76,7 @@ def test_envname_renders(tmp_path):
     img[..., 3] = 1.0
     p = str(tmp_path / "pano.png")
     save_png(p, img, linear=False)
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+    scene = load_scene(ensure_scene("cornellbox"))
     n_env0 = len(scene.environments)
     n_tex0 = len(scene.textures)
     add_environment(scene, p)

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.ops import bsdf
+from julia_raytracer.ops import bsdf
 
 N = 4096
 

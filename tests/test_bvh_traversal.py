@@ -3,11 +3,10 @@
 import jax.numpy as jnp
 import numpy as np
 
-from julia_raytracer_tpu.ops import bvh as bvh_mod
-from julia_raytracer_tpu.ops.geometry import RAY_EPS
-from julia_raytracer_tpu.ops.traversal import intersect_bruteforce, intersect_bvh
-from julia_raytracer_tpu.scene.flatten import flatten_scene
-from julia_raytracer_tpu.scene.loader import load_scene
+from julia_raytracer.ops import bvh as bvh_mod
+from julia_raytracer.ops.geometry import RAY_EPS
+from julia_raytracer.ops.traversal import intersect_bruteforce, intersect_bvh
+from julia_raytracer.scene.flatten import flatten_scene
 
 
 def random_tri_soup(rng, n):
@@ -93,10 +92,22 @@ def test_bvh_cornellbox_scene(cornellbox):
     np.testing.assert_allclose(np.asarray(bt)[hits], np.asarray(tt)[hits], rtol=1e-5)
 
 
-def test_bvh_large_instanced(scenes_dir):
-    scene = load_scene(f"{scenes_dir}/materials1/materials1.json")
-    flat = flatten_scene(scene)
+def test_bvh_large_instanced(rng):
+    """~30k world prims from 5 rotated instances of two tessellated shapes."""
+    from julia_raytracer.scene.generate import _displaced_shape, _rotation
+    from julia_raytracer.scene.types import InstanceData, SceneData, ShapeData
+
+    shapes = []
+    for n in (8000, 4000):
+        p, t, _, _ = _displaced_shape(rng, n)
+        shapes.append(ShapeData(positions=p, triangles=t))
+    instances = [
+        InstanceData(frame=np.concatenate([_rotation(rng) * 1.5, [[3.0 * i - 6, 0, 0]]])
+                     .astype(np.float32), shape=i % 2, material=0)
+        for i in range(5)]
+    flat = flatten_scene(SceneData(shapes=shapes, instances=instances))
     prims = flat.geometry.prim_verts
+    assert len(prims) > 25_000
     tree = bvh_mod.build_bvh(*bvh_mod.quad_bounds(prims))
     sorted_prims = jnp.asarray(prims[tree.order])
 

@@ -1,225 +1,81 @@
-"""Pallas lane-compactor (ops/pallas_compact.py): bit-exact pack to
-prefix + expand-merge, interpret mode (real Mosaic lowering is covered
-by the TPU smoke tier, tests_tpu/)."""
+"""Survivor compaction in trace_wavefront (render/integrator.py).
 
-import numpy as np
-import jax
+Both boundaries must give the same image as the single while_loop:
+dead lanes' outputs are final when they die, so moving the survivors to
+a narrower buffer and merging the narrow results back changes nothing.
+- unsorted wavefronts: argsort/gather narrowing, scatter merge;
+- sorted wavefronts: the in-body liveness sort packs survivors into the
+  prefix, so each boundary is a slice.
+The width thresholds are lowered so a 32 x 32 frame crosses 1-3
+boundaries.
+"""
+
 import jax.numpy as jnp
+import numpy as np
 import pytest
 
-from julia_raytracer_tpu.ops import pallas_compact as pc
+from julia_raytracer.render import integrator
 
 
-def _adversarial_f32(rng, n):
-    """f32 payloads including denormals, NaN/Inf patterns, -0."""
-    bits = rng.integers(0, 2**32, size=n, dtype=np.uint64).astype(np.uint32)
-    return bits.view(np.float32)
+def _trace(cornellbox, sort_rays, compact):
+    from julia_raytracer.ops.camera import sample_camera
+    from julia_raytracer.render.renderer import Params, Renderer
+    from julia_raytracer.utils import rng as rng_mod
 
-
-def _make_leaves(rng, n):
-    return [
-        _adversarial_f32(rng, 3 * n).reshape(n, 3),           # vec3 f32
-        _adversarial_f32(rng, n),                             # f32
-        rng.integers(-(2**31), 2**31, n).astype(np.int32),    # i32
-        rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32),
-        rng.integers(0, 2, n).astype(bool),                   # bool
-        _adversarial_f32(rng, 3 * n).reshape(n, 3),
-    ]
-
-
-def _np_compact(leaves, alive, cap):
-    idx = np.nonzero(alive)[0]
-    out = []
-    for leaf in leaves:
-        buf = np.zeros((cap,) + leaf.shape[1:], leaf.dtype)
-        buf[: len(idx)] = leaf[idx]
-        out.append(buf)
-    return out, idx
-
-
-@pytest.mark.parametrize("pattern", ["random", "dense", "sparse",
-                                     "exact_cap", "empty", "runs"])
-def test_compact_bit_exact(pattern):
-    rng = np.random.default_rng(hash(pattern) % 2**31)
-    n, cap = 4096, 1024
-    leaves = _make_leaves(rng, n)
-    if pattern == "random":
-        alive = rng.random(n) < 0.2
-    elif pattern == "dense":
-        alive = rng.random(n) < 0.24
-        alive[: n // 8] = True           # a fully-alive stretch
-        alive = alive & (np.cumsum(alive) <= cap)
-    elif pattern == "sparse":
-        alive = rng.random(n) < 0.01
-    elif pattern == "exact_cap":
-        alive = np.zeros(n, bool)
-        alive[rng.permutation(n)[:cap]] = True
-    elif pattern == "empty":
-        alive = np.zeros(n, bool)
-    else:  # runs: whole tiles dead, whole tiles mostly-alive
-        alive = np.zeros(n, bool)
-        alive[1024:2048] = rng.random(1024) < 0.9
-        alive[3072:4096] = rng.random(1024) < 0.5
-        alive = alive & (np.cumsum(alive) <= cap)
-    assert alive.sum() <= cap
-
-    got = pc.compact_state(
-        [jnp.asarray(x) for x in leaves], jnp.asarray(alive), cap,
-        interpret=True,
-    )
-    want, idx = _np_compact(leaves, alive, cap)
-    total = len(idx)
-    for g, w, leaf in zip(got, want, leaves):
-        g = np.asarray(g)
-        assert g.dtype == leaf.dtype
-        # compare as raw bits: NaNs must survive exactly
-        gb = g[:total].view((np.uint8, (leaf.dtype.itemsize,)) if g.ndim == 1
-                            else np.uint8)
-        wb = w[:total].view((np.uint8, (leaf.dtype.itemsize,)) if w.ndim == 1
-                            else np.uint8)
-        np.testing.assert_array_equal(gb, wb)
-
-
-def test_expand_roundtrip():
-    rng = np.random.default_rng(7)
-    n, cap = 4096, 1024
-    leaves = _make_leaves(rng, n)[:4]
-    alive = rng.random(n) < 0.2
-    alive = alive & (np.cumsum(alive) <= cap)
-    fallback = _make_leaves(rng, n)[:4]
-
-    packed = pc.compact_state(
-        [jnp.asarray(x) for x in leaves], jnp.asarray(alive), cap,
-        interpret=True,
-    )
-    merged = pc.expand_outputs(
-        packed, jnp.asarray(alive), [jnp.asarray(x) for x in fallback],
-        interpret=True,
-    )
-    for m, orig, fb in zip(merged, leaves, fallback):
-        m = np.asarray(m)
-        want = np.where(
-            alive[:, None] if orig.ndim == 2 else alive, orig, fb
-        ).astype(orig.dtype) if orig.dtype != np.bool_ else np.where(
-            alive, orig, fb)
-        # bitwise comparison
-        np.testing.assert_array_equal(
-            m.view(np.uint8) if m.ndim == 1 else m.view(np.uint8),
-            want.view(np.uint8) if want.ndim == 1 else want.view(np.uint8),
-        )
-
-
-def test_expand_narrow_results_land_on_source_lanes():
-    """The value written back to lane i must be the narrow buffer's
-    value at i's packed position (stable rank order)."""
-    rng = np.random.default_rng(11)
-    n, cap = 2048, 512
-    alive = rng.random(n) < 0.15
-    alive = alive & (np.cumsum(alive) <= cap)
-    idx = np.nonzero(alive)[0]
-    narrow = np.zeros(cap, np.float32)
-    narrow[: len(idx)] = rng.random(len(idx)).astype(np.float32) + 1.0
-    fallback = np.full(n, -5.0, np.float32)
-
-    merged = pc.expand_outputs(
-        [jnp.asarray(narrow)], jnp.asarray(alive), [jnp.asarray(fallback)],
-        interpret=True,
-    )[0]
-    merged = np.asarray(merged)
-    np.testing.assert_array_equal(merged[idx], narrow[: len(idx)])
-    np.testing.assert_array_equal(merged[~alive], fallback[~alive])
-
-
-@pytest.mark.parametrize("levels", ["1", "2"])
-def test_wavefront_pallas_compaction_bit_identical(monkeypatch, levels):
-    """trace_wavefront with the Pallas two-phase boundary must match the
-    plain while_loop exactly: dead lanes' outputs are final at the
-    boundary and the compactor is bit-exact, so the only code path
-    difference is WHERE surviving lanes sit during the tail bounces —
-    which the lane-independent integrator cannot observe."""
-    import jax.numpy as jnp
-
-    from julia_raytracer_tpu.scene.loader import load_scene
-    from julia_raytracer_tpu.render.renderer import Params, Renderer
-    from julia_raytracer_tpu.render.integrator import (
-        make_intersect, trace_wavefront,
-    )
-    from julia_raytracer_tpu.ops.camera import sample_camera
-    from julia_raytracer_tpu.utils import rng as rng_mod
-
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
-    params = Params(resolution=128, samples=1, bounces=6, sampler="path")
-    r = Renderer(scene, params)
-    n = 128 * 128
+    params = Params(resolution=32, samples=1, bounces=4, sampler="path")
+    r = Renderer(cornellbox, params)
+    n = 32 * 32
     pix = jnp.arange(n, dtype=jnp.int32)
     rng = rng_mod.seed_state(pix, jnp.int32(0), 0)
     puv, rng = rng_mod.rand2f(rng)
     luv, rng = rng_mod.rand2f(rng)
-    ij = jnp.stack([pix % 128, pix // 128], axis=-1)
-    ro, rd = sample_camera(r.cam_arrays, ij, (128, 128), puv, luv, False)
-    isec = make_intersect(r.dscene, r.config)
-    opts = r.options._replace(sort_rays=False, fixed_iterations=0)
+    ij = jnp.stack([pix % 32, pix // 32], axis=-1)
+    ro, rd = sample_camera(r.cam_arrays, ij, (32, 32), puv, luv, False)
+    opts = r.options._replace(sort_rays=sort_rays, fixed_iterations=0,
+                              compact=compact)
+    # radiance, hit, albedo, normal (the returned rng state of a dead lane
+    # depends on how many loop iterations ran after it died)
+    return [np.asarray(x) for x in integrator.trace_wavefront(
+        r.dscene, r.config, opts, ro, rd, rng)[:4]]
 
-    outs = {}
-    for mode in ("0", "1"):
-        monkeypatch.setenv("JRT_COMPACT", mode)
-        monkeypatch.setenv("JRT_COMPACT_MIN", "8192")
-        monkeypatch.setenv("JRT_COMPACT_LEVELS", levels)
-        # div=2 so levels=2 engages TWO Pallas boundaries at n=16384
-        # (caps 8192 then 4096); the default div=4 would cap-floor out
-        # of the second level and silently duplicate levels=1
-        monkeypatch.setenv("JRT_COMPACT_DIV", "2")
-        outs[mode] = [
-            np.asarray(x)
-            for x in trace_wavefront(
-                r.dscene, r.config, opts, ro, rd, rng, intersect=isec
-            )[:4]
-        ]
-    for a, b in zip(outs["0"], outs["1"]):
+
+@pytest.fixture
+def small_boundaries(monkeypatch):
+    monkeypatch.setattr(integrator, "COMPACT_MIN_LANES", 256)
+    monkeypatch.setattr(integrator, "COMPACT_MIN_CAP", 128)
+    monkeypatch.setitem(integrator.COMPACT_DIV, "gather", 2)
+    monkeypatch.setitem(integrator.COMPACT_DIV, "slice", 2)
+
+    def set_levels(kind, levels):
+        monkeypatch.setitem(integrator.COMPACT_LEVELS, kind, levels)
+
+    return set_levels
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_wavefront_gather_compaction_bit_identical(small_boundaries, cornellbox,
+                                                   levels):
+    """Unsorted wavefronts: the gather boundary (levels 1-3: caps 512,
+    256, 128 lanes) matches the single while_loop bit for bit."""
+    small_boundaries("gather", levels)
+    assert integrator.TraceOptions().compact  # the renderer's default
+    plain = _trace(cornellbox, False, False)
+    compacted = _trace(cornellbox, False, True)
+    for a, b in zip(plain, compacted):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("levels", ["1", "2"])
-def test_wavefront_sorted_slice_compaction_bit_identical(monkeypatch, levels):
-    """Sorted wavefronts: the recursive slice boundary (including
-    LEVELS>1) must match the single while_loop. Tolerance (not exact):
-    the narrow tail compiles as a separate graph and XLA reassociates
-    fusions around the in-body argsort+gathers differently at the two
-    widths (same class of deviation as test_render.py's
-    test_sorted_wavefront_bit_identical, observed <= 2e-6)."""
-    import jax.numpy as jnp
-
-    from julia_raytracer_tpu.scene.loader import load_scene
-    from julia_raytracer_tpu.render.renderer import Params, Renderer
-    from julia_raytracer_tpu.render.integrator import (
-        make_intersect, trace_wavefront,
-    )
-    from julia_raytracer_tpu.ops.camera import sample_camera
-    from julia_raytracer_tpu.utils import rng as rng_mod
-
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
-    params = Params(resolution=128, samples=1, bounces=6, sampler="path")
-    r = Renderer(scene, params)
-    n = 128 * 128
-    pix = jnp.arange(n, dtype=jnp.int32)
-    rng = rng_mod.seed_state(pix, jnp.int32(0), 0)
-    puv, rng = rng_mod.rand2f(rng)
-    luv, rng = rng_mod.rand2f(rng)
-    ij = jnp.stack([pix % 128, pix // 128], axis=-1)
-    ro, rd = sample_camera(r.cam_arrays, ij, (128, 128), puv, luv, False)
-    isec = make_intersect(r.dscene, r.config)
-    opts = r.options._replace(sort_rays=True, fixed_iterations=0)
-
-    outs = {}
-    for mode in ("0", "1"):
-        monkeypatch.setenv("JRT_COMPACT", mode)
-        monkeypatch.setenv("JRT_COMPACT_MIN", "8192")
-        monkeypatch.setenv("JRT_COMPACT_LEVELS", levels)
-        outs[mode] = [
-            np.asarray(x)
-            for x in trace_wavefront(
-                r.dscene, r.config, opts, ro, rd, rng, intersect=isec
-            )[:4]
-        ]
-    for a, b in zip(outs["0"], outs["1"]):
+@pytest.mark.parametrize("levels", [1, 2, 3])
+def test_wavefront_sorted_slice_compaction_bit_identical(small_boundaries,
+                                                         cornellbox, levels):
+    """Sorted wavefronts: the recursive slice boundary matches the single
+    while_loop. Tolerance (not exact): the narrow tail compiles as a
+    separate graph and XLA reassociates fusions around the in-body
+    argsort+gathers differently at the two widths (same class of
+    deviation as test_render.py's test_sorted_wavefront_bit_identical)."""
+    small_boundaries("slice", levels)
+    plain = _trace(cornellbox, True, False)
+    compacted = _trace(cornellbox, True, True)
+    for a, b in zip(plain, compacted):
         np.testing.assert_allclose(a, b, atol=2e-5)
+

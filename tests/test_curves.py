@@ -8,15 +8,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.render.integrator import (
+from julia_raytracer.render.integrator import (
     TraceOptions, make_intersect, trace_wavefront,
 )
-from julia_raytracer_tpu.render.scene_device import build_device_scene
-from julia_raytracer_tpu.scene.types import (
+from julia_raytracer.render.scene_device import build_device_scene
+from julia_raytracer.scene.types import (
     CameraData, EnvironmentData, InstanceData, MaterialData, SceneData,
     ShapeData,
 )
-from julia_raytracer_tpu.utils import rng as rng_mod
+from julia_raytracer.utils import rng as rng_mod
 
 
 def _hairball(n_hairs=400, seed=5):
@@ -134,8 +134,8 @@ def test_hairball_render_smoke(hair_scene):
     dsc, cfg = build_device_scene(hair_scene)
     n = 32 * 32
     pix = jnp.arange(n, dtype=jnp.int32)
-    from julia_raytracer_tpu.ops.camera import sample_camera
-    from julia_raytracer_tpu.render.renderer import camera_arrays
+    from julia_raytracer.ops.camera import sample_camera
+    from julia_raytracer.render.renderer import camera_arrays
 
     cam = camera_arrays(hair_scene.cameras[0])
     rngs = rng_mod.seed_state(pix, jnp.int32(0), 0)

@@ -9,8 +9,8 @@ and not washing out albedo edges.
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.render.denoise import denoise_image
-from julia_raytracer_tpu.render.renderer import Params, Renderer, make_trace_state
+from julia_raytracer.render.denoise import denoise_image
+from julia_raytracer.render.renderer import Params, Renderer, make_trace_state
 
 
 def _render_state(scene, size, spp, seed=0):
@@ -104,8 +104,9 @@ def test_denoise_flat_regions_smooth():
 
 
 def test_denoise_accepts_padded_buffers():
-    """trace_samples pads accumulation buffers to a chunk multiple (always
-    for instanced scenes; renderer.py stores the padded arrays in state).
+    """trace_samples pads accumulation buffers to a chunk multiple when a
+    frame spans several chunks (renderer.py stores the padded arrays in
+    state).
     denoise_image must slice to height*width instead of crashing on the
     reshape, and the result must be identical to the unpadded call."""
     rng = np.random.default_rng(1)

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.render.diff import diff_options, make_param_loss, render_radiance
-from julia_raytracer_tpu.render.integrator import TraceOptions
-from julia_raytracer_tpu.render.renderer import Params, Renderer, make_trace_state
+from julia_raytracer.render.diff import diff_options, make_param_loss, render_radiance
+from julia_raytracer.render.integrator import TraceOptions
+from julia_raytracer.render.renderer import Params, Renderer, make_trace_state
 
 
 @pytest.fixture(scope="module")
@@ -22,10 +22,8 @@ def setup(cornellbox_module):
 
 
 @pytest.fixture(scope="module")
-def cornellbox_module():
-    from julia_raytracer_tpu.scene.loader import load_scene
-
-    return load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+def cornellbox_module(cornellbox):
+    return cornellbox
 
 
 def test_fixed_trip_equals_while_loop(setup):
@@ -95,7 +93,7 @@ def test_emission_grad_direction(setup):
     r, state = setup
     n = state.width * state.height
     pix = jnp.arange(n, dtype=jnp.int32)
-    from julia_raytracer_tpu.render.diff import diff_options, render_radiance
+    from julia_raytracer.render.diff import diff_options, render_radiance
 
     rad = render_radiance(
         r.dscene, r.config, diff_options(r.options, r.config), r.cam_arrays,

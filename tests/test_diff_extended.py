@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.render.diff import diff_options, render_radiance
-from julia_raytracer_tpu.render.renderer import Params, camera_arrays
-from julia_raytracer_tpu.render.integrator import TraceOptions
-from julia_raytracer_tpu.render.scene_device import build_device_scene
-from julia_raytracer_tpu.scene.types import (
+from julia_raytracer.render.diff import diff_options, render_radiance
+from julia_raytracer.render.renderer import Params, camera_arrays
+from julia_raytracer.render.integrator import TraceOptions
+from julia_raytracer.render.scene_device import build_device_scene
+from julia_raytracer.scene.types import (
     CameraData, EnvironmentData, InstanceData, MaterialData, SceneData,
     ShapeData, TextureData,
 )

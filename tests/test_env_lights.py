@@ -6,15 +6,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.render import lights as L
-from julia_raytracer_tpu.render.scene_device import build_device_scene
+from julia_raytracer.render import lights as L
+from julia_raytracer.render.scene_device import build_device_scene
 
 
 @pytest.fixture(scope="module")
 def env_scene():
-    from julia_raytracer_tpu.scene.loader import load_scene
+    from julia_raytracer.scene.loader import load_scene
 
-    scene = load_scene("/root/reference/scenes/features1/features1.json")
+    from julia_raytracer.scene.generate import ensure_scene
+
+    scene = load_scene(ensure_scene("envmap"))
     return build_device_scene(scene)
 
 

@@ -1,289 +1,90 @@
-"""Two-level instancing: the instanced intersectors (jnp reference loop
-and the Pallas work-item kernel in interpret mode) must agree with a
-flattened brute-force of the same scene (reference semantics:
-src/bvh.jl:306-371 — scene BVH over instances, per-leaf ray transform
-into shape space)."""
+"""Instanced scenes flatten to world space and take the one-level path.
+
+The renderer's intersector on a flattened instanced scene must agree
+with a brute-force test over world prims expanded independently here
+(numpy: instance frame applied to every shape vertex), including the
+instance id of each hit, its material, and its geometric normal.
+"""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.ops.traversal import intersect_bruteforce
-from julia_raytracer_tpu.render.scene_device import (
-    build_device_scene, build_device_scene_instanced,
+from julia_raytracer.ops.geometry import RAY_EPS
+from julia_raytracer.ops.traversal import intersect_bruteforce
+from julia_raytracer.render.integrator import make_intersect
+from julia_raytracer.render.scene_device import build_device_scene
+from julia_raytracer.scene.generate import _displaced_shape, _rotation
+from julia_raytracer.scene.types import (
+    InstanceData, MaterialData, SceneData, ShapeData,
 )
-from julia_raytracer_tpu.scene.types import (
-    CameraData, InstanceData, MaterialData, SceneData, ShapeData,
-)
 
 
-def _icosphere_like(rng, n_tris=40, scale=1.0):
-    """Random closed-ish triangle soup around the origin."""
-    base = rng.normal(size=(n_tris, 3)).astype(np.float32)
-    base /= np.linalg.norm(base, axis=1, keepdims=True)
-    e1 = rng.normal(size=(n_tris, 3)).astype(np.float32) * 0.3
-    e2 = rng.normal(size=(n_tris, 3)).astype(np.float32) * 0.3
-    pos = np.concatenate([base * scale, base * scale + e1, base * scale + e2])
-    tris = np.stack(
-        [np.arange(n_tris), n_tris + np.arange(n_tris), 2 * n_tris + np.arange(n_tris)],
-        axis=1,
-    ).astype(np.int32)
-    return ShapeData(triangles=tris, positions=pos)
+def _scene(seed, n_instances):
+    rng = np.random.default_rng(seed)
+    shapes = []
+    for n_tris in (300, 120, 40):
+        p, t, _, _ = _displaced_shape(rng, n_tris)
+        shapes.append(ShapeData(positions=p, triangles=t))
+    materials = [MaterialData(color=rng.uniform(0.1, 0.9, 3).astype(np.float32))
+                 for _ in range(4)]
+    instances = []
+    for i in range(n_instances):
+        rot = _rotation(rng) * rng.uniform(0.3, 0.8)
+        org = rng.uniform(-2.5, 2.5, 3)
+        instances.append(InstanceData(
+            frame=np.concatenate([rot, org[None]]).astype(np.float32),
+            shape=int(rng.integers(0, 3)), material=int(rng.integers(0, 4))))
+    return SceneData(shapes=shapes, materials=materials, instances=instances)
 
 
-def _frame(rot_deg, translate, scale=1.0):
-    th = np.deg2rad(rot_deg)
-    c, s = np.cos(th), np.sin(th)
-    rot = np.array([[c, 0, -s], [0, 1, 0], [s, 0, c]], np.float32) * scale
-    f = np.zeros((4, 3), np.float32)
-    f[:3] = rot
-    f[3] = translate
-    return f
+def _world_prims(scene):
+    """(verts [P,4,3], instance [P]) expanded without scene/flatten.py."""
+    verts, owner = [], []
+    for i, inst in enumerate(scene.instances):
+        sh = scene.shapes[inst.shape]
+        tri = sh.triangles
+        local = sh.positions[np.concatenate([tri, tri[:, 2:3]], axis=1)]
+        world = local.astype(np.float64) @ inst.frame[:3] + inst.frame[3]
+        verts.append(world.astype(np.float32))
+        owner.append(np.full(len(tri), i, np.int32))
+    return np.concatenate(verts), np.concatenate(owner)
 
 
-@pytest.fixture(scope="module")
-def inst_scene():
-    rng = np.random.default_rng(7)
-    shapes = [
-        _icosphere_like(rng, 40, 1.0),
-        _icosphere_like(rng, 25, 0.6),
-    ]
-    mats = [MaterialData(color=np.array([0.7, 0.7, 0.7], np.float32))]
-    instances = [
-        InstanceData(frame=_frame(0, [0, 0, 0]), shape=0, material=0),
-        InstanceData(frame=_frame(40, [2.5, 0, 0]), shape=0, material=0),
-        InstanceData(frame=_frame(-70, [-2.5, 0.5, 0]), shape=1, material=0),
-        InstanceData(frame=_frame(120, [0, 2.5, -1], scale=1.4), shape=1, material=0),
-        InstanceData(frame=_frame(200, [1.5, -2.0, 1], scale=0.7), shape=0, material=0),
-    ]
-    scene = SceneData(
-        cameras=[CameraData()], shapes=shapes, materials=mats,
-        instances=instances,
-    )
-    n = 2048
-    ro = np.tile([0.0, 0.0, 8.0], (n, 1)).astype(np.float32)
-    rd = rng.normal(size=(n, 3)).astype(np.float32)
-    rd[:, 2] = -np.abs(rd[:, 2]) - 0.5
+@pytest.mark.parametrize("n_instances", [1, 3, 8])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_flattened_instances_match_expanded_bruteforce(seed, n_instances):
+    scene = _scene(seed, n_instances)
+    dscene, config = build_device_scene(scene)
+    wv, owner = _world_prims(scene)
+    assert config.n_prims == len(wv) and config.n_instances == n_instances
+
+    rng = np.random.default_rng(100 + seed)
+    n = 512
+    ro = rng.uniform(-4, 4, (n, 3)).astype(np.float32)
+    ro[:, 2] = 6.0
+    # aim at the instances: a random instance's origin, jittered
+    origins = np.array([inst.frame[3] for inst in scene.instances])
+    target = (origins[rng.integers(0, n_instances, n)]
+              + rng.uniform(-0.6, 0.6, (n, 3))).astype(np.float32)
+    rd = target - ro
     rd /= np.linalg.norm(rd, axis=1, keepdims=True)
-    return scene, jnp.asarray(ro), jnp.asarray(rd)
+    ro, rd = jnp.asarray(ro), jnp.asarray(rd)
+    tmin, tmax = jnp.full(n, RAY_EPS), jnp.full(n, 3.4e38)
 
-
-def _flat_ref(scene, ro, rd, tmin, tmax):
-    dflat, cflat = build_device_scene(scene, instancing=False)
-    return intersect_bruteforce(
-        dflat.prim_verts, ro, rd, tmin, tmax, prim_instance=dflat.prim_instance
-    )
-
-
-def test_instanced_ref_matches_flat(inst_scene):
-    from julia_raytracer_tpu.render.integrator import make_intersect_instanced_ref
-
-    scene, ro, rd = inst_scene
-    n = ro.shape[0]
-    tmin = jnp.full(n, 1e-4)
-    tmax = jnp.full(n, 3.4e38)
-    ref = _flat_ref(scene, ro, rd, tmin, tmax)
-    dsc, cfg = build_device_scene_instanced(scene)
-    assert cfg.inst_tables is not None
-    got = make_intersect_instanced_ref(dsc, cfg)(ro, rd, tmin, tmax)
-    _check_vs_flat(ref, got)
-
-
-def test_instanced_kernel_interpret_matches_flat(inst_scene):
-    from julia_raytracer_tpu.ops.pallas_cluster import (
-        make_cluster_intersect_instanced,
-    )
-
-    scene, ro, rd = inst_scene
-    n = ro.shape[0]
-    tmin = jnp.full(n, 1e-4)
-    tmax = jnp.full(n, 3.4e38)
-    ref = _flat_ref(scene, ro, rd, tmin, tmax)
-    dsc, cfg = build_device_scene_instanced(scene)
-    # small K to force multiple rounds through the while_loop
-    got = make_cluster_intersect_instanced(
-        cfg.inst_tables, interpret=True, k_items=8
-    )(ro, rd, tmin, tmax)
-    _check_vs_flat(ref, got)
-
-
-def test_instanced_kernel_flat_grid_interpret(inst_scene):
-    """The flattened 1-D dispatch (one grid step per live (block,
-    work-item) pair, power-of-two bucket ladder) must match the flat
-    brute force exactly like the round-based while_loop dispatch does,
-    across multiple ray blocks (per-block init/emit flags)."""
-    from julia_raytracer_tpu.ops.pallas_cluster import (
-        make_cluster_intersect_instanced,
-    )
-
-    scene, ro, rd = inst_scene
-    n = ro.shape[0]
-    tmin = jnp.full(n, 1e-4)
-    tmax = jnp.full(n, 3.4e38)
-    ref = _flat_ref(scene, ro, rd, tmin, tmax)
-    dsc, cfg = build_device_scene_instanced(scene)
-    got = make_cluster_intersect_instanced(
-        cfg.inst_tables, interpret=True, flat_grid=True
-    )(ro, rd, tmin, tmax)
-    _check_vs_flat(ref, got)
-
-
-def _check_vs_flat(ref, got):
-    h1, t1 = np.asarray(ref.hit), np.asarray(ref.t)
-    h2, t2 = np.asarray(got.hit), np.asarray(got.t)
-    np.testing.assert_array_equal(h1, h2)
-    m = h1
-    # t agrees (prim ids live in different spaces; distance + attributes
-    # are the contract)
-    np.testing.assert_allclose(t1[m], t2[m], rtol=2e-4, atol=2e-4)
-    i1 = np.asarray(ref.instance)[m]
-    i2 = np.asarray(got.instance)[m]
-    assert (i1 == i2).mean() > 0.999  # ties on overlapping surfaces
-    same = m.copy()
-    same[m] &= i1 == i2
-    p1, p2 = np.asarray(ref.position)[same], np.asarray(got.position)[same]
-    np.testing.assert_allclose(p1, p2, atol=5e-3)
-    g1, g2 = np.asarray(ref.gnormal)[same], np.asarray(got.gnormal)[same]
-    # sign-insensitive compare: flat path derives normals from expanded
-    # world verts, instanced from shape space + rotation
-    dots = np.abs((g1 * g2).sum(axis=1))
-    assert (dots > 0.999).mean() > 0.999
-
-
-def test_instanced_render_smoke(inst_scene):
-    """End-to-end: the instanced scene renders through the wavefront
-    integrator (jnp reference intersector) without NaNs."""
-    import jax
-
-    from julia_raytracer_tpu.render.integrator import (
-        TraceOptions, make_intersect, trace_wavefront,
-    )
-    from julia_raytracer_tpu.utils import rng as rng_mod
-
-    scene, ro, rd = inst_scene
-    scene.environments = []
-    from julia_raytracer_tpu.scene.types import EnvironmentData
-
-    scene.environments.append(
-        EnvironmentData(emission=np.array([1.0, 1.0, 1.0], np.float32))
-    )
-    dsc, cfg = build_device_scene_instanced(scene)
-    n = ro.shape[0]
-    rngs = rng_mod.seed_state(jnp.arange(n, dtype=jnp.int32), jnp.int32(0), 0)
-    opts = TraceOptions(sampler="path", bounces=3)
-    rad, hit, alb, nrm, _ = trace_wavefront(
-        dsc, cfg, opts, ro, rd, rngs, intersect=make_intersect(dsc, cfg)
-    )
-    rad = np.asarray(rad)
-    assert np.isfinite(rad).all()
-    assert rad.max() > 0
-
-
-def test_hybrid_partition_and_remap(inst_scene):
-    """budget=60 flattens only shape 1 (25 prims x 2 instances = 50);
-    shape 0 (40 x 3 = 120) stays as work items. The remap table must
-    send every flattened world prim to the shape-space eval prim whose
-    instance-transformed verts reproduce it exactly."""
-    scene, ro, rd = inst_scene
-    dsc, cfg = build_device_scene_instanced(scene, hybrid_budget=60)
-    assert cfg.hyb_world_verts is not None
-    assert len(cfg.hyb_world_verts) == 50
-    # only shape-0 instances remain as work items
-    left = set(np.asarray(cfg.inst_tables.wi_inst).tolist())
-    assert left == {0, 1, 4}
-    pv_eval = np.asarray(dsc.prim_verts)  # shape-space eval layout
-    rows = np.asarray(cfg.inst_tables.inst_rows)
-    wpv = np.asarray(cfg.hyb_world_verts)
-    winst = np.asarray(cfg.hyb_world_inst)
-    remap = np.asarray(cfg.hyb_remap)
-    for k in range(0, len(wpv), 7):
-        i = int(winst[k])
-        rot = rows[i, 12:21].reshape(3, 3)
-        org = -(rows[i, 9:12] @ rot)  # oi = -org @ Ri  =>  org = -oi @ R
-        world = pv_eval[remap[k]] @ rot + org
-        np.testing.assert_allclose(world, wpv[k], rtol=1e-4, atol=1e-4)
-
-
-def test_hybrid_intersect_matches_flat(inst_scene):
-    """Mixed hybrid (some shapes flattened, some work items) and
-    fully-flattened hybrid must both match the flat brute force."""
-    from julia_raytracer_tpu.render.integrator import make_intersect_hybrid
-
-    scene, ro, rd = inst_scene
-    n = ro.shape[0]
-    tmin = jnp.full(n, 1e-4)
-    tmax = jnp.full(n, 3.4e38)
-    ref = _flat_ref(scene, ro, rd, tmin, tmax)
-    for budget in (60, 1_000_000):
-        dsc, cfg = build_device_scene_instanced(scene, hybrid_budget=budget)
-        assert cfg.hyb_world_verts is not None and len(cfg.hyb_world_verts)
-        if budget > 100:
-            assert len(cfg.inst_tables.wi_inst) == 0  # all flattened
-        got = make_intersect_hybrid(dsc, cfg, on_tpu=False)(ro, rd, tmin, tmax)
-        _check_vs_flat(ref, got)
-        # remapped prim ids must land on real (non-padding) eval prims
-        hp = np.asarray(got.prim)[np.asarray(got.hit)]
-        assert (hp >= 0).all() and (hp < cfg.n_prims).all()
-        pv_eval = np.asarray(dsc.prim_verts)
-        assert (np.abs(pv_eval[hp]).sum(axis=(1, 2)) > 0).all()
-
-
-def test_hybrid_render_matches_pure_instanced(inst_scene):
-    """Shading parity: the hybrid build must render (wavefront MIS path)
-    the same image as the pure instanced build — remapped flat-branch
-    prim ids feed the identical shape-space eval tables."""
-    from julia_raytracer_tpu.render.integrator import (
-        TraceOptions, build_intersector, trace_wavefront,
-    )
-    from julia_raytracer_tpu.utils import rng as rng_mod
-
-    scene, ro, rd = inst_scene
-    if not scene.environments:
-        from julia_raytracer_tpu.scene.types import EnvironmentData
-
-        scene.environments.append(
-            EnvironmentData(emission=np.array([1.0, 1.0, 1.0], np.float32))
-        )
-    n = ro.shape[0]
-    imgs = []
-    for budget in (0, 60):
-        dsc, cfg = build_device_scene_instanced(scene, hybrid_budget=budget)
-        rngs = rng_mod.seed_state(
-            jnp.arange(n, dtype=jnp.int32), jnp.int32(0), 0
-        )
-        opts = TraceOptions(sampler="path", bounces=3)
-        rad = trace_wavefront(
-            dsc, cfg, opts, ro, rd, rngs,
-            intersect=build_intersector(dsc, cfg),
-        )[0]
-        imgs.append(np.asarray(rad))
-        assert np.isfinite(imgs[-1]).all()
-    np.testing.assert_allclose(imgs[0], imgs[1], rtol=2e-3, atol=2e-3)
-
-
-def test_hybrid_budget_full_flatten_auto(monkeypatch):
-    """The HBM-aware hybrid budget (PERF_r05 ecosys endgame): a
-    many-instance scene whose FULL expansion fits the cap flattens
-    entirely (zero work items — the work-item branch disappears);
-    an explicit smaller budget keeps instances as work items."""
-    rng = np.random.default_rng(3)
-    shape = _icosphere_like(rng, 8, 0.3)
-    mats = [MaterialData(color=np.array([0.7, 0.7, 0.7], np.float32))]
-    instances = [
-        InstanceData(
-            frame=_frame((i * 7) % 360, [i % 40, i // 40, 0]),
-            shape=0, material=0,
-        )
-        for i in range(1100)  # >= HYBRID_MIN_INSTANCES
-    ]
-    scene = SceneData(
-        cameras=[CameraData()], shapes=[shape], materials=mats,
-        instances=instances,
-    )
-    _, cfg = build_device_scene_instanced(scene)
-    assert len(cfg.inst_tables.wi_sup) == 0, "full expansion fits -> no work items"
-
-    # budget below one shape's world footprint: nothing flattens
-    monkeypatch.setenv("JRT_HYBRID_BUDGET", "2000")
-    _, cfg2 = build_device_scene_instanced(scene)
-    assert len(cfg2.inst_tables.wi_sup) > 0
+    got = make_intersect(dscene, config)(ro, rd, tmin, tmax)
+    ref = intersect_bruteforce(jnp.asarray(wv), ro, rd, tmin, tmax,
+                               prim_instance=jnp.asarray(owner))
+    hit = np.asarray(ref.hit)
+    assert hit.sum() > 20
+    np.testing.assert_array_equal(np.asarray(got.hit), hit)
+    np.testing.assert_allclose(np.asarray(got.t)[hit], np.asarray(ref.t)[hit],
+                               rtol=1e-5)
+    inst_got = np.asarray(got.instance)[hit]
+    np.testing.assert_array_equal(inst_got, np.asarray(ref.instance)[hit])
+    mats = np.array([inst.material for inst in scene.instances])
+    np.testing.assert_array_equal(
+        np.asarray(dscene.inst_material)[inst_got], mats[inst_got])
+    # geometric normals agree up to orientation-preserving rounding
+    np.testing.assert_allclose(np.asarray(got.gnormal)[hit],
+                               np.asarray(ref.gnormal)[hit], atol=2e-4)

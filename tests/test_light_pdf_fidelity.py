@@ -7,33 +7,35 @@ the light's own geometry, so occluders are invisible to the march. Our
 shipped path (`area_lights_pdf_exact`) sweeps every emissive element
 directly, which is exhaustive by construction.
 
-Round-1 shipped a truncated whole-scene march instead; measured here on
-staircase2 (13 area lights, heavy occlusion), extra_steps=2 truncated
-38% of the pdf mass because occluder hits consume march steps without
-accumulating. That march is retained only as a fallback for scenes with
+Round-1 shipped a truncated whole-scene march instead; on an occluded
+many-light scene (the generated `manylights`: 13 small area lights above
+four layers of slats), extra_steps=2 truncates a large share of the pdf
+mass because occluder hits consume march steps without accumulating. That march is retained only as a fallback for scenes with
 > EXACT_ELEMS emissive elements, with its budget raised accordingly.
 
 This test pins the shipped exact sweep to an exhaustive whole-scene
-march (64 steps — enough to enumerate every surface along any staircase2
-ray) and documents the truncation error that motivated the redesign.
+march (64 steps — enough to enumerate every surface along any of its
+rays) and documents the truncation error that motivated the redesign.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.ops.camera import sample_camera
-from julia_raytracer_tpu.render import lights as L
-from julia_raytracer_tpu.render.integrator import make_intersect
-from julia_raytracer_tpu.render.renderer import camera_arrays, image_size_for
-from julia_raytracer_tpu.render.scene_device import build_device_scene
-from julia_raytracer_tpu.scene.loader import find_camera, load_scene
-from julia_raytracer_tpu.utils import rng as rng_mod
+from julia_raytracer.ops.camera import sample_camera
+from julia_raytracer.render import lights as L
+from julia_raytracer.render.integrator import make_intersect
+from julia_raytracer.render.renderer import camera_arrays, image_size_for
+from julia_raytracer.render.scene_device import build_device_scene
+from julia_raytracer.scene.loader import find_camera, load_scene
+from julia_raytracer.utils import rng as rng_mod
 
 
 @pytest.fixture(scope="module")
-def staircase_pdfs():
-    scene = load_scene("/root/reference/scenes/staircase2/staircase2.json")
+def manylights_pdfs():
+    from julia_raytracer.scene.generate import ensure_scene
+
+    scene = load_scene(ensure_scene("manylights"))
     dscene, config = build_device_scene(scene)
     counts = config.light_counts
     assert counts.n_instance >= 2, "need a multi-light scene"
@@ -100,19 +102,19 @@ def _rel_err(approx, exact, mask):
     return float(np.abs(approx[sel] - exact[sel]).sum() / exact[sel].sum())
 
 
-def test_exact_matches_exhaustive_march(staircase_pdfs):
+def test_exact_matches_exhaustive_march(manylights_pdfs):
     """The shipped element sweep equals an exhaustive whole-scene march
     (tolerance covers the march's 1e-3 per-step origin offsets)."""
-    exact, marches, mask = staircase_pdfs
+    exact, marches, mask = manylights_pdfs
     err = _rel_err(marches[64], exact, mask)
     assert err < 0.01, f"exact vs 64-step march rel err {err:.4f}"
 
 
-def test_truncated_march_underestimates(staircase_pdfs):
+def test_truncated_march_underestimates(manylights_pdfs):
     """Documents the round-1 defect: a 2-step march loses a large
     fraction of pdf mass on occluded multi-light scenes (marches can
     only MISS emissive hits, never add them), hence the redesign."""
-    exact, marches, mask = staircase_pdfs
+    exact, marches, mask = manylights_pdfs
     sel = mask
     assert (marches[2][sel] <= exact[sel] * (1 + 1e-4) + 1e-6).all()
     err2 = _rel_err(marches[2], exact, mask)

@@ -4,8 +4,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from julia_raytracer_tpu.render import lights as L
-from julia_raytracer_tpu.render.scene_device import build_device_scene
+from julia_raytracer.render import lights as L
+from julia_raytracer.render.scene_device import build_device_scene
 
 
 def test_sample_discrete_matches_numpy():
@@ -79,8 +79,8 @@ def test_sample_lights_points_to_light(cornellbox):
 def test_lights_pdf_matches_analytic(cornellbox):
     """For a point directly under the square light, pdf of a direction that
     hits the light = dist^2 / (cos * area) / n_lights."""
-    from julia_raytracer_tpu.render.integrator import make_intersect
-    from julia_raytracer_tpu.ops.geometry import F32_MAX, RAY_EPS
+    from julia_raytracer.render.integrator import make_intersect
+    from julia_raytracer.ops.geometry import F32_MAX, RAY_EPS
 
     dscene, config = build_device_scene(cornellbox)
     counts = config.light_counts

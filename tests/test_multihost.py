@@ -3,7 +3,7 @@ connected via jax.distributed on the CPU backend (4 virtual devices
 each -> a 2x4 global mesh) must reproduce the single-process render
 exactly. This validates the BASELINE config-5 code path — coordinator
 wiring, cross-host mesh, scene broadcast over DCN, sharded pixel lanes,
-image all-gather — without pod hardware (SURVEY §5 distributed backend).
+image all-gather — without a cluster (SURVEY §5 distributed backend).
 """
 
 import os
@@ -59,14 +59,16 @@ def test_two_process_render_matches_single(tmp_path):
 
     # single-process reference on this process's own (8-device) mesh
     import jax.numpy as jnp
-    from julia_raytracer_tpu.ops.camera import sample_camera
-    from julia_raytracer_tpu.render.integrator import TraceOptions, trace_wavefront
-    from julia_raytracer_tpu.render.renderer import camera_arrays, image_size_for
-    from julia_raytracer_tpu.render.scene_device import build_device_scene
-    from julia_raytracer_tpu.scene.loader import find_camera, load_scene
-    from julia_raytracer_tpu.utils import rng as rng_mod
+    from julia_raytracer.ops.camera import sample_camera
+    from julia_raytracer.render.integrator import TraceOptions, trace_wavefront
+    from julia_raytracer.render.renderer import camera_arrays, image_size_for
+    from julia_raytracer.render.scene_device import build_device_scene
+    from julia_raytracer.scene.loader import find_camera, load_scene
+    from julia_raytracer.utils import rng as rng_mod
 
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+    from julia_raytracer.scene.generate import ensure_scene
+
+    scene = load_scene(ensure_scene("cornellbox"))
     dscene, config = build_device_scene(scene)
     cam = scene.cameras[max(find_camera(scene, ""), 0)]
     ca = camera_arrays(cam)

@@ -7,18 +7,20 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.parallel.mesh import make_mesh, shard_render_fn, shard_train_step
-from julia_raytracer_tpu.render.integrator import trace_wavefront
-from julia_raytracer_tpu.render.renderer import Params, Renderer, make_trace_state
-from julia_raytracer_tpu.utils import rng as rng_mod
-from julia_raytracer_tpu.ops.camera import sample_camera
+from julia_raytracer.parallel.mesh import make_mesh, shard_render_fn, shard_train_step
+from julia_raytracer.render.integrator import trace_wavefront
+from julia_raytracer.render.renderer import Params, Renderer, make_trace_state
+from julia_raytracer.utils import rng as rng_mod
+from julia_raytracer.ops.camera import sample_camera
 
 
 @pytest.fixture(scope="module")
 def setup():
-    from julia_raytracer_tpu.scene.loader import load_scene
+    from julia_raytracer.scene.loader import load_scene
 
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+    from julia_raytracer.scene.generate import ensure_scene
+
+    scene = load_scene(ensure_scene("cornellbox"))
     params = Params(resolution=32, samples=1, bounces=3, sampler="path")
     r = Renderer(scene, params)
     state = make_trace_state(scene, params)
@@ -78,9 +80,9 @@ def test_sharded_train_step(setup):
 
 
 def _synthetic_instanced_scene(rng):
-    """Small two-shape, five-instance scene with an environment; used by
-    the hybrid and pure-instanced multi-device tests."""
-    from julia_raytracer_tpu.scene.types import (
+    """Small two-shape, five-instance scene with an environment; every
+    instance flattens to world space (used by the instanced tests)."""
+    from julia_raytracer.scene.types import (
         CameraData, EnvironmentData, InstanceData, MaterialData, SceneData,
         ShapeData,
     )
@@ -136,21 +138,15 @@ def _instanced_rays(n, seed):
     return jnp.asarray(ro), jnp.asarray(rd), rngs
 
 
-def test_sharded_hybrid_instanced_render_matches_single():
-    """The hybrid-instancing intersector (flat world soup + work items +
-    remap gather) must be GSPMD-clean: sharded render over the 8-device
-    mesh == single-device render on a hybrid-built instanced scene."""
-    from julia_raytracer_tpu.render.scene_device import (
-        build_device_scene_instanced,
-    )
-    from julia_raytracer_tpu.render.integrator import TraceOptions
+def test_sharded_instanced_render_matches_single():
+    """An instanced scene, flattened to world space, must be GSPMD-clean:
+    sharded render over the 8-device mesh == single-device render."""
+    from julia_raytracer.render.integrator import TraceOptions
+    from julia_raytracer.render.scene_device import build_device_scene
 
     rng = np.random.default_rng(11)
-    dsc, cfg = build_device_scene_instanced(
-        _synthetic_instanced_scene(rng), hybrid_budget=50
-    )
-    assert cfg.hyb_world_verts is not None and len(cfg.hyb_world_verts)
-    assert len(cfg.inst_tables.wi_inst) > 0  # genuinely mixed
+    dsc, cfg = build_device_scene(_synthetic_instanced_scene(rng))
+    assert cfg.n_instances == 5 and cfg.n_prims == 3 * 30 + 2 * 20
 
     ro, rd, rngs = _instanced_rays(2048, 11)
     opts = TraceOptions(sampler="path", bounces=3)
@@ -166,15 +162,14 @@ def test_sharded_hybrid_instanced_render_matches_single():
 
 
 # ---------------------------------------------------------------------------
-# VERDICT r2 item 7: multi-device coverage beyond cornellbox — the paths
-# whose intersectors differ per backend (area lights + env importance
-# sampling + instancing) through the REAL cross-host entry point
+# multi-device coverage beyond cornellbox — area lights, env importance
+# sampling and instancing through the cross-host entry point
 # (distributed_render_fn), single-process on the virtual 8-device mesh.
 # ---------------------------------------------------------------------------
 
 
 def _distributed_vs_single(dsc, cfg, opts, ro, rd, rngs):
-    from julia_raytracer_tpu.parallel.distributed import (
+    from julia_raytracer.parallel.distributed import (
         distributed_render_fn, global_mesh,
     )
 
@@ -192,43 +187,33 @@ def _distributed_vs_single(dsc, cfg, opts, ro, rd, rngs):
 
 
 @pytest.mark.slow
-def test_distributed_render_staircase2_area_lights_env():
-    """staircase2 (31k prims, 13 emissive materials) + the procedural
+def test_distributed_render_manylights_area_lights_env():
+    """manylights (13 emissive materials, occluders) + the procedural
     sun-sky environment (--addsky): exercises segmented area-light CDFs,
     env texel importance sampling, and the MIS pdf sweep under
     distributed_render_fn — sharded == single."""
-    from julia_raytracer_tpu.render.integrator import TraceOptions
-    from julia_raytracer_tpu.scene.augment import add_sky
-    from julia_raytracer_tpu.scene.loader import load_scene
-    from julia_raytracer_tpu.render.renderer import Params, Renderer, make_trace_state
+    from julia_raytracer.scene.augment import add_sky
+    from julia_raytracer.scene.generate import ensure_scene
+    from julia_raytracer.scene.loader import load_scene
 
-    scene = load_scene("/root/reference/scenes/staircase2/staircase2.json")
+    scene = load_scene(ensure_scene("manylights"))
     add_sky(scene)
     params = Params(resolution=24, samples=1, bounces=3, sampler="path")
     r = Renderer(scene, params)
     state = make_trace_state(scene, params)
-    assert r.config.n_envs > 0 and r.config.n_prims > 30_000
+    assert r.config.n_envs > 0 and r.config.light_counts.n_instance == 13
     ro, rd, rngs = _rays(r, state)
     _distributed_vs_single(r.dscene, r.config, r.options, ro, rd, rngs)
 
 
 @pytest.mark.slow
 def test_distributed_render_instanced():
-    """A genuinely two-level instanced scene (work-item tables + inst_rows
-    ray transforms, hybrid flatten forced OFF) through
-    distributed_render_fn — the instanced intersector must be
-    GSPMD/shard_map-clean too."""
-    from julia_raytracer_tpu.render.integrator import TraceOptions
-    from julia_raytracer_tpu.render.scene_device import (
-        build_device_scene_instanced,
-    )
+    """A flattened instanced scene through distributed_render_fn."""
+    from julia_raytracer.render.integrator import TraceOptions
+    from julia_raytracer.render.scene_device import build_device_scene
 
     rng = np.random.default_rng(13)
-    dsc, cfg = build_device_scene_instanced(
-        _synthetic_instanced_scene(rng), hybrid_budget=0
-    )
-    assert cfg.inst_tables is not None and len(cfg.inst_tables.wi_inst) > 0
-    assert cfg.hyb_world_verts is None or not len(cfg.hyb_world_verts)
+    dsc, cfg = build_device_scene(_synthetic_instanced_scene(rng))
     ro, rd, rngs = _instanced_rays(2048, 13)
     opts = TraceOptions(sampler="path", bounces=3)
     _distributed_vs_single(dsc, cfg, opts, ro, rd, rngs)

@@ -1,43 +1,21 @@
-"""End-to-end renderer tests: golden statistical parity, determinism,
-checkpoint/resume. Golden comparisons are tolerance-based because the
-reference's global-rand() renders are non-reproducible (SURVEY §5)."""
+"""End-to-end renderer tests: estimator agreement, determinism,
+chunking, checkpoint/resume, AOVs (generated cornellbox)."""
 
 import numpy as np
 import pytest
-from PIL import Image
 
-from julia_raytracer_tpu.render.renderer import Params, Renderer, make_trace_state
-from julia_raytracer_tpu.utils.color import rgb_to_srgb
+from julia_raytracer.render.renderer import Params, Renderer, make_trace_state
 
 
-def golden(name: str, size: int) -> np.ndarray:
-    """Reference render box-downsampled to size x size, sRGB floats."""
-    img = np.asarray(
-        Image.open(f"/root/reference/images/{name}.png"), np.float32
-    )[..., :3] / 255.0
-    f = img.shape[0] // size
-    return img[: size * f, : size * f].reshape(size, f, size, f, 3).mean(axis=(1, 3))
-
-
-def render(scene, size=64, spp=16, sampler="path", **kw):
+def render(scene, size=32, spp=16, sampler="path", bounces=4, **kw):
     params = Params(
-        resolution=size, samples=spp, batch=spp, sampler=sampler, **kw
+        resolution=size, samples=spp, batch=spp, sampler=sampler,
+        bounces=bounces, **kw
     )
     r = Renderer(scene, params)
     state = make_trace_state(scene, params)
     state = r.trace_samples(state)
     return r, state, r.get_image(state)
-
-
-@pytest.mark.slow
-def test_path_matches_golden_cornellbox(cornellbox):
-    _, _, img = render(cornellbox, size=64, spp=24, sampler="path")
-    ours = np.clip(rgb_to_srgb(img)[..., :3], 0, 1)
-    gold = golden("cornellbox_path", 64)
-    mse = float(((ours - gold) ** 2).mean())
-    assert mse < 0.01, f"MSE vs golden too high: {mse}"
-    # per-channel means within a few percent
-    np.testing.assert_allclose(ours.mean(axis=(0, 1)), gold.mean(axis=(0, 1)), atol=0.02)
 
 
 @pytest.mark.slow
@@ -68,7 +46,7 @@ def test_partial_chunk_accumulation(monkeypatch, cornellbox):
     start index and write a shifted band of wrong pixels. Force a small
     chunk that doesn't divide 32x32=1024 and compare with the one-chunk
     render."""
-    from julia_raytracer_tpu.render import renderer as renderer_mod
+    from julia_raytracer.render import renderer as renderer_mod
 
     _, _, ref = render(cornellbox, size=32, spp=2, sampler="path")
     monkeypatch.setattr(renderer_mod, "MAX_CHUNK", 384)  # 1024 = 2*384 + 256
@@ -79,21 +57,21 @@ def test_partial_chunk_accumulation(monkeypatch, cornellbox):
 
 
 def test_checkpoint_resume(tmp_path, cornellbox):
-    params = Params(resolution=32, samples=4, batch=2, sampler="path")
+    params = Params(resolution=32, samples=4, batch=2, bounces=4, sampler="path")
     r = Renderer(cornellbox, params)
     s = make_trace_state(cornellbox, params)
     s = r.trace_samples(s)  # 2 samples
     ckpt = str(tmp_path / "state.npz")
     s.save(ckpt)
 
-    from julia_raytracer_tpu.render.renderer import TraceState
+    from julia_raytracer.render.renderer import TraceState
 
     s2 = TraceState.load(ckpt)
     assert s2.samples == 2
     s2 = r.trace_samples(s2)  # 2 more
 
     s_straight = make_trace_state(cornellbox, params)
-    params2 = Params(resolution=32, samples=4, batch=4, sampler="path")
+    params2 = Params(resolution=32, samples=4, batch=4, bounces=4, sampler="path")
     r2 = Renderer(cornellbox, params2)
     s_straight = r2.trace_samples(s_straight)
     np.testing.assert_allclose(
@@ -129,9 +107,9 @@ def test_sorted_wavefront_bit_identical(cornellbox):
     deviation 1.5e-8 on a handful of lanes)."""
     import jax.numpy as jnp
 
-    from julia_raytracer_tpu.render.integrator import make_intersect, trace_wavefront
-    from julia_raytracer_tpu.ops.camera import sample_camera
-    from julia_raytracer_tpu.utils import rng as rng_mod
+    from julia_raytracer.render.integrator import make_intersect, trace_wavefront
+    from julia_raytracer.ops.camera import sample_camera
+    from julia_raytracer.utils import rng as rng_mod
 
     params = Params(resolution=24, samples=1, bounces=4, sampler="path")
     r = Renderer(cornellbox, params)

@@ -1,11 +1,14 @@
-"""Scene/PLY/texture loading contract tests against the reference corpus."""
+"""Scene/PLY/texture loading contract tests on the generated scenes
+(julia_raytracer.scene.generate)."""
+
+import os
 
 import numpy as np
 import pytest
 
-from julia_raytracer_tpu.scene.loader import find_camera, load_scene, load_shape
-from julia_raytracer_tpu.scene.flatten import flatten_scene
-from julia_raytracer_tpu.scene.types import MaterialType
+from julia_raytracer.scene.loader import find_camera, load_scene, load_shape
+from julia_raytracer.scene.flatten import flatten_scene
+from julia_raytracer.scene.types import MaterialType
 
 
 def test_cornellbox_counts(cornellbox):
@@ -41,21 +44,23 @@ def test_cornellbox_materials(cornellbox):
     assert mats[0].opacity == pytest.approx(1.0)
 
 
-def test_ply_triangle_pair(scenes_dir):
-    shape = load_shape(f"{scenes_dir}/cornellbox/shapes/light.ply")
+def test_ply_triangle_pair(scene_file):
+    root = os.path.dirname(scene_file("cornellbox"))
+    shape = load_shape(f"{root}/shapes/light.ply")
     assert shape.positions.shape == (4, 3)
     assert shape.triangles.shape == (2, 3)
     assert shape.quads.shape == (0, 4)
     assert shape.triangles.min() >= 0 and shape.triangles.max() <= 3
 
 
-def test_ply_triangle_shape_with_attrs(scenes_dir):
-    shape = load_shape(f"{scenes_dir}/shapes1/shapes/sphere.ply")
-    assert shape.positions.shape == (6534, 3)
-    assert shape.normals.shape == (6534, 3)
-    assert shape.texcoords.shape == (6534, 2)
-    # sphere.ply is a quad mesh per its header (6144 faces)
-    assert len(shape.quads) + len(shape.triangles) == 6144
+def test_ply_triangle_shape_with_attrs(scene_file):
+    root = os.path.dirname(scene_file("envmap"))
+    shape = load_shape(f"{root}/shapes/sphere.ply")
+    # a 96 x 64 quad grid over a (97 x 65)-vertex UV sphere
+    assert shape.positions.shape == (6305, 3)
+    assert shape.normals.shape == (6305, 3)
+    assert shape.texcoords.shape == (6305, 2)
+    assert len(shape.quads) == 6144 and len(shape.triangles) == 0
     # normals should be ~unit length
     lens = np.linalg.norm(shape.normals, axis=1)
     np.testing.assert_allclose(lens, 1.0, atol=1e-3)
@@ -76,17 +81,31 @@ def test_flatten_cornellbox(cornellbox):
     np.testing.assert_allclose(flat.materials.emission[4], [17, 12, 4])
 
 
-def test_flatten_instanced_scene(scenes_dir):
-    scene = load_scene(f"{scenes_dir}/materials1/materials1.json")
+def test_flatten_instanced_scene(rng):
+    from julia_raytracer.scene.types import InstanceData, SceneData, ShapeData
+
+    shapes = [ShapeData(positions=rng.normal(size=(30, 3)).astype(np.float32),
+                        triangles=rng.integers(0, 30, (n, 3)).astype(np.int32))
+              for n in (4000, 2147)]
+    frames = [np.concatenate([np.eye(3), [[2.0 * i, 0, 0]]]).astype(np.float32)
+              for i in range(5)]
+    scene = SceneData(
+        shapes=shapes,
+        instances=[InstanceData(frame=f, shape=i % 2, material=0)
+                   for i, f in enumerate(frames)])
     flat = flatten_scene(scene)
-    # materials1 expands 6147 unique faces to 30723 prims (5 instances reuse)
-    assert flat.geometry.prim_verts.shape[0] == 30723
-    # world-space transform applied: instance frames differ
+    # 5 instances reuse 2 shapes: 3 x 4000 + 2 x 2147 world prims
+    assert flat.geometry.prim_verts.shape[0] == 3 * 4000 + 2 * 2147
     assert flat.n_instances == len(scene.instances)
+    # world-space transform applied: instance 3 is shape 1 moved by +6 x
+    g = flat.geometry
+    sel = g.prim_instance == 3
+    want = shapes[1].positions[shapes[1].triangles[:, 0]] + [6.0, 0, 0]
+    np.testing.assert_allclose(g.prim_verts[sel][:, 0], want, rtol=1e-6)
 
 
-def test_environment_scene(scenes_dir):
-    scene = load_scene(f"{scenes_dir}/features1/features1.json")
+def test_environment_scene(scene_file):
+    scene = load_scene(scene_file("envmap"))
     assert len(scene.environments) == 1
     env = scene.environments[0]
     assert env.emission_tex == 0

@@ -1,14 +1,14 @@
 """Per-iteration alive-lane profile of the megakernel while_loop.
 
-The flagship bound (PROFILE_CB_r04: 32.7 Mpaths/s kernel ceiling) is one
-fused while_loop that runs EVERY lane until the LAST survivor dies.
+The bounce loop is one while_loop that runs EVERY lane until the LAST
+survivor dies (unless trace_wavefront's survivor compaction narrows it).
 This tool scans the same body with a per-iteration alive count
 (trace_wavefront(alive_trace=True)) to size the wasted full-width
 iterations: work_ratio = sum(alive_i)/(iters_live x n) is the ideal
 compaction ceiling (1/work_ratio = max possible speedup from perfect
 lane compaction at zero cost).
 
-Run: python tools/alive_profile.py [scene] [res] [--spp K]
+Run: python tools/alive_profile.py [generated scene name] [res]
 """
 
 import json
@@ -29,20 +29,18 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache"),
-    )
-    from julia_raytracer_tpu.ops.camera import sample_camera
-    from julia_raytracer_tpu.render.integrator import trace_wavefront
-    from julia_raytracer_tpu.render.renderer import (
+    from julia_raytracer.cli import enable_compile_cache
+    from julia_raytracer.ops.camera import sample_camera
+    from julia_raytracer.render.integrator import trace_wavefront
+    from julia_raytracer.render.renderer import (
         Params, Renderer, make_trace_state,
     )
-    from julia_raytracer_tpu.scene.loader import load_scene
-    from julia_raytracer_tpu.utils import rng as rng_mod
+    from julia_raytracer.scene.generate import ensure_scene
+    from julia_raytracer.scene.loader import load_scene
+    from julia_raytracer.utils import rng as rng_mod
 
-    scene_path = f"/root/reference/scenes/{scene_name}/{scene_name}.json"
+    enable_compile_cache()
+    scene_path = ensure_scene(scene_name)
     scene = load_scene(scene_path)
     params = Params(
         scene=scene_path, resolution=res, samples=1, bounces=8,
@@ -61,8 +59,6 @@ def main():
 
     f = jax.jit(lambda dscene, ro, rd, rng: trace_wavefront(
         dscene, r.config, r.options, ro, rd, rng,
-        intersect=r.intersect,
-        intersect_primary=getattr(r.intersect, "primary", None),
         alive_trace=True,
     ))
     t0 = time.time()

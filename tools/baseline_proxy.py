@@ -41,19 +41,15 @@ def run(measure: bool):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), ".jax_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-
-    from julia_raytracer_tpu.render.renderer import (
+    from julia_raytracer.cli import enable_compile_cache
+    from julia_raytracer.render.renderer import (
         Params, Renderer, make_trace_state,
     )
-    from julia_raytracer_tpu.scene.loader import load_scene
+    from julia_raytracer.scene.generate import ensure_scene
+    from julia_raytracer.scene.loader import load_scene
 
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+    enable_compile_cache()
+    scene = load_scene(ensure_scene("cornellbox"))
     params = Params(
         resolution=RESOLUTION, samples=WARM_SPP + BENCH_SPP, bounces=8,
         sampler="path", batch=WARM_SPP,

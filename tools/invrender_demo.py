@@ -17,7 +17,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
@@ -32,20 +31,20 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache")
-    )
     import jax.numpy as jnp
     import numpy as np
     import optax
 
-    from julia_raytracer_tpu.render.diff import (
+    from julia_raytracer.render.diff import (
         diff_options, render_radiance_mean,
     )
-    from julia_raytracer_tpu.render.renderer import Params, Renderer, make_trace_state
-    from julia_raytracer_tpu.scene.loader import load_scene
+    from julia_raytracer.cli import enable_compile_cache
+    from julia_raytracer.render.renderer import Params, Renderer, make_trace_state
+    from julia_raytracer.scene.generate import ensure_scene
+    from julia_raytracer.scene.loader import load_scene
 
-    scene = load_scene("/root/reference/scenes/cornellbox/cornellbox.json")
+    enable_compile_cache()
+    scene = load_scene(ensure_scene("cornellbox"))
     params = Params(
         scene="cornellbox", resolution=args.res, sampler="path", bounces=4
     )
